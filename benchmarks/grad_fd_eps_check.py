@@ -23,12 +23,12 @@ _spec = importlib.util.spec_from_file_location(
 g5 = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(g5)
 
-# reuse the cpu64 build (MODE default 'tpu' only affects dt pin writes;
+# reuse the cpu64 build (MODE default 'device' only affects dt pin writes;
 # the pin file exists so build() reads it)
 cfg, s, carry0 = g5.build()
 qk0 = carry0.flow_state.qk
 
-from swraytracing_tpu.models.coupled import run_coupled_chunk  # noqa: E402
+from swraytracing.models.coupled import run_coupled_chunk  # noqa: E402
 
 
 @jax.jit

@@ -28,12 +28,12 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import spectral as sp
-from swraytracing_tpu.ops.nufft import eval_spectrum_at
-from swraytracing_tpu.models.qg import initial_q_ring
-from swraytracing_tpu.models.fields import flow_from_qk
-from swraytracing_tpu.ops.interp import lagrange_weights
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import spectral as sp
+from swraytracing.ops.nufft import eval_spectrum_at
+from swraytracing.models.qg import initial_q_ring
+from swraytracing.models.fields import flow_from_qk
+from swraytracing.ops.interp import lagrange_weights
 
 ORDER = 2
 S = 2 * ORDER + 2

@@ -1,10 +1,10 @@
 """GRAD_r05 (round-4 verdict weak #2 / item 5): validate the RUN-SCALE
-TPU f32 gradient against a MATCHED-CONFIG f64 AD oracle — same nx,
+accelerator f32 gradient against a MATCHED-CONFIG f64 AD oracle — same nx,
 steps, substeps, march engagement, and time step; only the packet count
 is what CPU f64 can carry (2^14, which still engages the fused-march
 path via window_min_np).
 
-GRAD_r04's tpu_f32 row was validated only against f32 finite
+GRAD_r04's device_f32 row was validated only against f32 finite
 differences at fd_eps=1e-2 — at f32 through a 1250-step chain the FD
 noise is the same order as the reported 2.3% error, so it bounded
 nothing tightly; the f64 oracle there ran at a different config (128^2,
@@ -16,16 +16,16 @@ value so the three legs differentiate the same trajectory map:
   cpu64 — f64 AD + f64 central FD (the oracle; FD confirms the AD)
   cpu32 — f32 AD with identical (XLA-reference) march arithmetic:
           isolates PRECISION from backend/kernel differences
-  tpu   — f32 AD through the Pallas kernel forward / XLA-ref backward
+  device — f32 AD through the kernel forward / XLA-ref backward
 
 The f32 budget: ad_f32_cpu_vs_f64 is pure rounding accumulated by the
-chain; ad_tpu_vs_cpu_f32 adds kernel-vs-XLA arithmetic (fusion/FMA
-order); ad_tpu_vs_f64 is the headline bound. Run legs as
-  python benchmarks/gradscience_r05.py cpu64|cpu32|tpu
+chain; ad_device_vs_cpu_f32 adds kernel-vs-XLA arithmetic (fusion/FMA
+order); ad_device_vs_f64 is the headline bound. Run legs as
+  python benchmarks/gradscience_r05.py cpu64|cpu32|device
 (rows merge into GRAD_r05.json; derived deltas update on each run).
 
 Reference: SURVEY §7 hard part #1 (f32-vs-f64 drift budget);
-qgsw_raytrace.m has no adjoint — this surface is TPU-native only.
+qgsw_raytrace.m has no adjoint — this surface exists only here.
 """
 import sys as _sys, pathlib as _pl
 _sys.path.insert(0, str(_pl.Path(__file__).resolve().parents[1]))
@@ -34,7 +34,7 @@ import time
 
 import numpy as np
 
-MODE = _sys.argv[1] if len(_sys.argv) > 1 else "tpu"
+MODE = _sys.argv[1] if len(_sys.argv) > 1 else "device"
 
 import jax  # noqa: E402
 
@@ -45,7 +45,7 @@ if MODE == "cpu64":
 
 import jax.numpy as jnp  # noqa: E402
 
-from swraytracing_tpu.models.coupled import (CoupledConfig, setup_coupled,  # noqa: E402
+from swraytracing.models.coupled import (CoupledConfig, setup_coupled,  # noqa: E402
                                              run_coupled_chunk)
 
 NX = 256
@@ -114,13 +114,13 @@ def main():
     data[MODE] = row
     if "cpu64" in data:
         g64 = data["cpu64"]["dloss_da_ad"]
-        for leg in ("cpu32", "tpu"):
+        for leg in ("cpu32", "device"):
             if leg in data:
                 data[f"ad_{leg}_vs_f64_rel"] = abs(
                     data[leg]["dloss_da_ad"] - g64) / abs(g64)
-    if "cpu32" in data and "tpu" in data:
-        data["ad_tpu_vs_cpu32_rel"] = abs(
-            data["tpu"]["dloss_da_ad"] - data["cpu32"]["dloss_da_ad"]) \
+    if "cpu32" in data and "device" in data:
+        data["ad_device_vs_cpu32_rel"] = abs(
+            data["device"]["dloss_da_ad"] - data["cpu32"]["dloss_da_ad"]) \
             / abs(data["cpu32"]["dloss_da_ad"])
     out.write_text(json.dumps(data, indent=1))
     print(MODE, json.dumps(row, indent=1))

@@ -1,29 +1,29 @@
-"""GRAD_r05 follow-up: discriminate WHY the matched-config TPU f32
-gradient (gradscience_r05.py `tpu` row) deviates ~41% from the CPU f64
+"""GRAD_r05 follow-up: discriminate WHY the matched-config accelerator f32
+gradient (gradscience_r05.py `device` row) deviates ~41% from the CPU f64
 AD oracle while CPU f32 AD matches it to 5.6e-4.
 
 Two hypotheses:
-  (a) adjoint bug in the TPU path (Pallas forward / custom-VJP
-      backward) — then TPU AD would ALSO disagree with TPU central
+  (a) adjoint bug in the device path (kernel forward / custom-VJP
+      backward) — then device AD would ALSO disagree with device central
       finite differences of its own loss;
-  (b) the TPU integrates a slightly different MAP (matmul-DFT
-      transforms instead of jnp.fft, kernel fusion/FMA order, ~1e-6
+  (b) the device integrates a slightly different MAP (f32
+      transforms, kernel fusion/FMA order, ~1e-6
       relative per step) and 1250 coupled steps of a chaotic flow
-      amplify that into an O(1) gradient difference — then TPU AD
-      matches TPU FD (the adjoint is faithful to the chip's own map)
-      and the TPU-vs-f64 gap must GROW with horizon from ~f32 scale.
+      amplify that into an O(1) gradient difference — then device AD
+      matches device FD (the adjoint is faithful to the chip's own map)
+      and the device-vs-f64 gap must GROW with horizon from ~f32 scale.
 
 Legs (merge into GRAD_r05.json):
-  tpu_fd  — central FD on the TPU at the full 1250-step horizon, an
+  device_fd  — central FD on the device at the full 1250-step horizon, an
             eps study (f32: eps too small drowns in rounding, too
-            large in curvature), plus TPU AD at short horizons.
+            large in curvature), plus device AD at short horizons.
   cpu64_h — f64 AD at the same short horizons (same pinned dt).
 
-Derived: horizon table {steps: rel(tpu_ad, cpu64_ad)}.
+Derived: horizon table {steps: rel(device_ad, cpu64_ad)}.
 
 Reference: SURVEY §7 hard part #1 (f32-vs-f64 drift budget);
 qgsw_raytrace.m has no adjoint — this validation surface is
-TPU-native only.
+exists only here.
 """
 import sys as _sys, pathlib as _pl
 _sys.path.insert(0, str(_pl.Path(__file__).resolve().parents[1]))
@@ -32,7 +32,7 @@ import time
 
 import numpy as np
 
-MODE = _sys.argv[1] if len(_sys.argv) > 1 else "tpu_fd"
+MODE = _sys.argv[1] if len(_sys.argv) > 1 else "device_fd"
 
 import jax  # noqa: E402
 
@@ -43,7 +43,7 @@ if MODE == "cpu64_h":
 
 import jax.numpy as jnp  # noqa: E402
 
-from swraytracing_tpu.models.coupled import (CoupledConfig, setup_coupled,  # noqa: E402
+from swraytracing.models.coupled import (CoupledConfig, setup_coupled,  # noqa: E402
                                              run_coupled_chunk)
 
 NX = 256
@@ -85,11 +85,11 @@ def main():
     mine = {}
     hz = mine.setdefault("horizon_ad", {})
 
-    if MODE == "tpu_fd":
+    if MODE == "device_fd":
         loss = loss_n(FULL_SAVES)
         one = jnp.asarray(1.0)
         g_ad = (json.loads(out.read_text()) if out.exists() else {}) \
-            .get("tpu", {}).get("dloss_da_ad")
+            .get("device", {}).get("dloss_da_ad")
         rows = []
         for eps in (3e-3, 1e-2, 3e-2):
             t0 = time.perf_counter()
@@ -98,14 +98,14 @@ def main():
             row = dict(eps=eps, fd=fd, secs=round(
                 time.perf_counter() - t0, 2))
             if g_ad is not None:
-                row["tpu_ad_vs_fd_rel"] = abs(g_ad - fd) / abs(fd)
+                row["device_ad_vs_fd_rel"] = abs(g_ad - fd) / abs(fd)
             rows.append(row)
             print(row, flush=True)
-        mine["tpu_fd_eps_study"] = rows
+        mine["device_fd_eps_study"] = rows
         for n in HORIZON_SAVES:
             g = float(jax.jit(jax.grad(loss_n(n)))(one, carry0))
-            hz.setdefault(str(n * 5), {})["tpu_ad"] = g
-            print("horizon", n * 5, "tpu_ad", g, flush=True)
+            hz.setdefault(str(n * 5), {})["device_ad"] = g
+            print("horizon", n * 5, "device_ad", g, flush=True)
     elif MODE == "cpu64_h":
         one = jnp.asarray(1.0)
         for n in HORIZON_SAVES:
@@ -122,8 +122,8 @@ def main():
         else:
             data[k] = v
     for row in data.get("horizon_ad", {}).values():
-        if "tpu_ad" in row and "cpu64_ad" in row:
-            row["rel"] = abs(row["tpu_ad"] - row["cpu64_ad"]) \
+        if "device_ad" in row and "cpu64_ad" in row:
+            row["rel"] = abs(row["device_ad"] - row["cpu64_ad"]) \
                 / abs(row["cpu64_ad"])
     out.write_text(json.dumps(data, indent=1))
     print("wrote", out, flush=True)

@@ -20,11 +20,11 @@ import functools
 import numpy as np
 import jax.numpy as jnp
 
-from swraytracing_tpu.models.coupled import (CoupledConfig, setup_coupled,
+from swraytracing.models.coupled import (CoupledConfig, setup_coupled,
                                              coupled_flow_packet_step)
-from swraytracing_tpu.models.fields import BlendedFlow, flow_from_qk
-from swraytracing_tpu.models.qg import qg_step
-from swraytracing_tpu.models import rays
+from swraytracing.models.fields import BlendedFlow, flow_from_qk
+from swraytracing.models.qg import qg_step
+from swraytracing.models import rays
 
 NX = 256
 NP = 512

@@ -18,12 +18,12 @@ import functools
 import numpy as np
 import jax.numpy as jnp
 
-from swraytracing_tpu.models.coupled2 import (Coupled2Config,
+from swraytracing.models.coupled2 import (Coupled2Config,
                                               setup_coupled2,
                                               coupled2_flow_packet_step)
-from swraytracing_tpu.models.fields import BlendedFlow
-from swraytracing_tpu.models.qg2 import qg2_step, top_layer_flow
-from swraytracing_tpu.models import rays
+from swraytracing.models.fields import BlendedFlow
+from swraytracing.models.qg2 import qg2_step, top_layer_flow
+from swraytracing.models import rays
 
 NX = 512
 NP = 512

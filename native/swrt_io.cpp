@@ -6,7 +6,7 @@
 // unit*nx*ny*nz*(frame-1) (doubled for complex fields, which are stored
 // as staggered real/imag blocks per frame), column-major within a frame.
 //
-// The Python layer (swraytracing_tpu/io/binio.py) binds these via
+// The Python layer (swraytracing/io/binio.py) binds these via
 // ctypes; a pure-numpy fallback exists for environments without a
 // compiler. This library is the hot path for streaming packet
 // trajectories at 1e6 packets (16 MB/frame) without GIL-bound Python

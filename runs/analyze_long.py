@@ -8,12 +8,13 @@ import numpy as np
 import matplotlib
 matplotlib.use("Agg")
 
-sys.path.insert(0, "/root/repo")
-from swraytracing_tpu.analysis import spectra, plots
-from swraytracing_tpu.io import binio
-from swraytracing_tpu.ops.grid import SpectralGrid
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from swraytracing.analysis import spectra, plots
+from swraytracing.io import binio
+from swraytracing.ops.grid import SpectralGrid
 
-run = "/root/repo/runs/flagship_long"
+run = os.path.join(REPO, "runs", "flagship_long")
 figs = os.path.join(run, "figs")
 os.makedirs(figs, exist_ok=True)
 

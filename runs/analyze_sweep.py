@@ -16,15 +16,16 @@ import matplotlib
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 
-sys.path.insert(0, "/root/repo")
-from swraytracing_tpu.analysis import spectra  # noqa: E402
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from swraytracing.analysis import spectra  # noqa: E402
 
 # Usage: analyze_sweep.py [base [override_base ...]] — members are
 # run-<i> dirs; later bases OVERRIDE earlier ones for the same member
 # index (the round-5 T=2000 strong-flow continuation in sweep_b2000
 # supersedes sweep_full's truncated U_g>=0.6 members). Figures and
 # sweep_summary.json go to the FIRST base.
-bases = sys.argv[1:] or ["/root/repo/runs/sweep_full"]
+bases = sys.argv[1:] or [os.path.join(REPO, "runs", "sweep_full")]
 base = bases[0]
 figs = os.path.join(base, "figs")
 os.makedirs(figs, exist_ok=True)
@@ -111,7 +112,7 @@ for rd, counts, edges, t, p in members:
                  f"$U_g$={p['U_g']:g}", fontsize=8)
     ax.tick_params(labelsize=6)
 fig.suptitle("e($\\omega$) final windows — full 20-config sweep "
-             "(one vmapped TPU program)", fontsize=11)
+             "(one vmapped device program)", fontsize=11)
 fig.tight_layout()
 fig.savefig(os.path.join(figs, "sweep_grid.png"), dpi=120)
 plt.close(fig)
@@ -158,9 +159,9 @@ print("figures written to", figs)
 # the analysis pass cheap.
 want = os.environ.get("SWEEP_ANIMATE", "")
 if want:
-    from swraytracing_tpu.io import binio
-    from swraytracing_tpu.ops.grid import SpectralGrid
-    from swraytracing_tpu.analysis import plots
+    from swraytracing.io import binio
+    from swraytracing.ops.grid import SpectralGrid
+    from swraytracing.analysis import plots
 
     for i in sorted(member_dirs):
         rd = member_dirs[i]

@@ -1,0 +1,159 @@
+"""Two-layer coupled flow + wave-packet driver.
+
+Re-design of /root/reference/qg_flow_ray_trace/qg2layersw_raytrace.m:
+two-layer QG with imposed shear advanced by integrating-factor AB3, with
+wave packets sub-cycled against time-blended top-layer velocity grids
+every flow step (packets see the TOP layer only, :185-189).
+
+The headline benchmark configuration (BASELINE.json config 5: 512^2
+two-layer flow, 1e6 packets) runs through this driver.
+
+The reference adapts dt when its CFL check fails and rebuilds the matrix
+exponentials (:154-165); here dt is fixed from the initial CFL with the
+same safety factor the reference applies on rebuild (CFL_fraction/2), so
+the whole run is one `lax.scan`. The shear-driven flow equilibrates, so
+a fixed dt at half-CFL matches the reference's post-adaptation dt.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax import lax
+
+from ..ops.grid import SpectralGrid
+from .dispersion import Dispersion
+from .coupled import (CoupledCarry, lockstep_step, ring_packet_ics,
+                      prepare_carry_windows, build_march_spec,
+                      march_n_fields, window_threshold)
+from .qg2 import (QG2Params, QG2Operators, qg2_init, qg2_step,
+                  build_operators, initial_q2_ring, top_layer_flow,
+                  max_speed2)
+
+__all__ = ["Coupled2Config", "Coupled2Setup", "setup_coupled2",
+           "coupled2_flow_packet_step", "run_coupled2_chunk"]
+
+
+class Coupled2Config(NamedTuple):
+    """Mirrors qg2layersw_raytrace's signature (:1) and hard-coded
+    constants (:13, :24-34)."""
+
+    nx: int = 256
+    n_packets: int = 50
+    near_inertial_factor: float = 2.0
+    T_Fr_days: float = 6000.0
+    packet_delay_days: float = 1000.0
+    U_g: float = 0.4
+    f: float = 3.0
+    Cg: float = 1.0
+    L: float = 20.0                     # qg2layersw_raytrace.m:13
+    shear: float = 0.5                  # :28
+    beta: float = 0.0
+    r: float = 0.4                      # :33
+    nu_tune: float = 0.1                # :34
+    alpha: int = 4                      # :32
+    CFL_fraction: float = 0.25          # :31
+    steps_per_save: int = 10
+    packet_steps_per_save: int = 25
+    n_substeps: int = 2   # see CoupledConfig.n_substeps
+    stepper: str = "rk23"
+    seed: int = 5                       # rng(5), :25
+    ring_ic: bool = True
+    one_layer_quirk: bool = False       # packet-flow inversion quirk
+    dealias: bool = False
+    fused_march: bool = True            # see CoupledConfig.fused_march
+    march_uv_windows: bool = True       # see CoupledConfig
+    march_combined_gather: bool = True  # see CoupledConfig
+    window_min_np: int = 65536          # see CoupledConfig.window_min_np
+    march_margin: int | None = None     # see CoupledConfig.march_margin
+
+
+class Coupled2Setup(NamedTuple):
+    grid: SpectralGrid
+    disp: Dispersion
+    params: QG2Params
+    ops: QG2Operators
+    dt: float
+    n_steps: int
+    packet_delay: float
+    Fr: float
+    U0: float
+    T: float
+    march: object | None = None         # pallas_window.MarchSpec
+
+
+def setup_coupled2(cfg: Coupled2Config):
+    """Grid, operators, ICs, CFL dt (qg2layersw_raytrace.m:13-81)."""
+    grid = SpectralGrid.square(cfg.nx, cfg.L)
+    disp = Dispersion(f=cfg.f, Cg=cfg.Cg)
+    Kd2 = cfg.f / cfg.Cg
+
+    p = QG2Params(Kd2=Kd2, shear=cfg.shear, beta=cfg.beta, r=cfg.r,
+                  nu_tune=cfg.nu_tune, alpha=cfg.alpha, dealias=cfg.dealias)
+    qk0 = initial_q2_ring(cfg.seed, grid, cfg.U_g, Kd2, ring=cfg.ring_ic)
+
+    # dt from initial CFL at the reference's rebuild safety factor
+    ops_probe = build_operators(grid, p, 1.0)  # B only needed
+    U0 = float(jax.jit(lambda q: max_speed2(q, grid, ops_probe, p))(qk0))
+    Fr = U0 / cfg.Cg
+    T = (cfg.T_Fr_days / cfg.f) / Fr**2
+    dt = 0.5 * cfg.CFL_fraction * grid.dx / U0
+    n_steps = int(np.ceil(T / dt))
+    packet_delay = cfg.packet_delay_days / cfg.f
+
+    ops = build_operators(grid, p, dt)
+
+    px0, pk0 = ring_packet_ics(cfg, grid, seed=cfg.seed)
+    march = build_march_spec(cfg, grid, dt, U0)
+    nf0 = march_n_fields(march)
+    fields0 = jax.jit(lambda q: top_layer_flow(
+        q, grid, ops, p, cfg.one_layer_quirk, n_fields=nf0).fields)(qk0)
+    carry0 = CoupledCarry(flow_state=qg2_init(qk0), packet_x=px0,
+                          packet_k=pk0, prev_fields=fields0)
+    setup = Coupled2Setup(grid=grid, disp=disp, params=p, ops=ops, dt=dt,
+                          n_steps=n_steps, packet_delay=packet_delay,
+                          Fr=Fr, U0=U0, T=T, march=march)
+    return setup, carry0
+
+
+def coupled2_flow_packet_step(carry: CoupledCarry, s: Coupled2Setup,
+                              cfg: Coupled2Config) -> CoupledCarry:
+    """One two-layer lock-step iteration (qg2layersw_raytrace.m:152-197)."""
+    nf = march_n_fields(s.march)
+    return lockstep_step(
+        carry,
+        flow_step_fn=lambda st: qg2_step(st, s.grid, s.ops, s.params),
+        fields_fn=lambda st: top_layer_flow(
+            st.qk, s.grid, s.ops, s.params, cfg.one_layer_quirk,
+            n_fields=nf).fields,
+        grid=s.grid, disp=s.disp, dt=s.dt, packet_delay=s.packet_delay,
+        n_substeps=cfg.n_substeps, stepper=cfg.stepper, march=s.march,
+        window_min_np=window_threshold(cfg))
+
+
+def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
+                       cfg: Coupled2Config, n_saves: int,
+                       remat: bool = False, diag_fn=None):
+    """Advance n_saves * packet_steps_per_save flow steps, emitting a
+    packet snapshot per save (qg2layersw_raytrace.m:199-209 cadence).
+    diag_fn: optional carry -> pytree device diagnostic emitted per save
+    in place of the packet arrays (see run_coupled_chunk).
+    remat=True rematerialises each lock-step in reverse-mode AD (see
+    run_coupled_chunk)."""
+    step = lambda cc: coupled2_flow_packet_step(cc, s, cfg)
+    if remat:
+        step = jax.checkpoint(step)
+    carry = prepare_carry_windows(carry, remat, s.march,
+                                  window_threshold(cfg))
+
+    def one_save(c, _):
+        c = lax.fori_loop(0, cfg.packet_steps_per_save,
+                          lambda i, cc: step(cc), c)
+        if diag_fn is not None:
+            return c, (diag_fn(c), c.flow_state.t)
+        return c, (c.packet_x, c.packet_k, c.flow_state.t)
+
+    return lax.scan(one_save, carry, None, length=n_saves)

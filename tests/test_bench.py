@@ -1,7 +1,6 @@
-"""Smoke test for bench.py — the driver's scoring surface. A breakage
-here (e.g. a bad config kwarg behind a BENCH_* env) would zero the
-round's BENCH capture, so exercise the real script end-to-end at tiny
-dims on CPU, including the newest env knobs."""
+"""Smoke test for bench.py: a breakage here (e.g. a bad config kwarg
+behind a BENCH_* env) would break the benchmark, so exercise the real
+script end-to-end at tiny dims on the CPU, including its env knobs."""
 
 import json
 import os
@@ -14,7 +13,7 @@ def test_bench_smoke_tiny():
                JAX_PLATFORMS="cpu",
                BENCH_NX="32", BENCH_NP="512", BENCH_SAVES="1",
                BENCH_STEPS_PER_CALL="2", BENCH_SUBSTEPS="2",
-               BENCH_STEPPER="rk23", BENCH_FUSED_BUILD="0")
+               BENCH_STEPPER="rk23")
     r = subprocess.run(
         [sys.executable, os.path.join(os.path.dirname(__file__), "..",
                                       "bench.py")],
@@ -24,3 +23,5 @@ def test_bench_smoke_tiny():
     out = json.loads(line)
     assert out["unit"] == "packet-steps/s"
     assert out["value"] > 0 and out["vs_baseline"] > 0
+    assert out["device"] == {"platform": "cpu", "kind": "cpu",
+                             "count": out["device"]["count"]}

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.models import cgrid
-from swraytracing_tpu.models.cgrid import SWPParams
+from swraytracing.models import cgrid
+from swraytracing.models.cgrid import SWPParams
 
 
 def test_avg_dif_match_reference_semantics():
@@ -87,7 +87,7 @@ def test_swp_restart_matches_continuous(tmp_path):
     reproduce a single continuous run exactly: RK3 carries no history,
     so a save-boundary restart is bit-exact, and the file frames must
     continue the numbering."""
-    from swraytracing_tpu.io import binio
+    from swraytracing.io import binio
 
     n = 32
     rng = np.random.default_rng(1)

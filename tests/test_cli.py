@@ -1,4 +1,4 @@
-"""CLI smoke tests (python -m swraytracing_tpu ...) — the headless-
+"""CLI smoke tests (python -m swraytracing ...) — the headless-
 MATLAB replacement surface (runqgsw_raytrace.sbatch:31 equivalent)."""
 
 import sys
@@ -12,7 +12,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _run(*args, timeout=600):
     return subprocess.run(
-        [sys.executable, "-m", "swraytracing_tpu", *args],
+        [sys.executable, "-m", "swraytracing", *args],
         cwd=REPO, capture_output=True, text=True, timeout=timeout,
         env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
              "JAX_PLATFORMS": "cpu", "HOME": "/root"})

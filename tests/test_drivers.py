@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from swraytracing_tpu import drivers
-from swraytracing_tpu.analysis import spectra
-from swraytracing_tpu.io import binio, runmeta
+from swraytracing import drivers
+from swraytracing.analysis import spectra
+from swraytracing.io import binio, runmeta
 
 
 def test_qgsw_raytrace_end_to_end(tmp_path):
@@ -152,7 +152,7 @@ def test_run_sweep_ensemble_pv_series_and_init_from(tmp_path):
                              frames=len(tpv))
         assert q.shape == (32, 32) and np.isfinite(q).all()
     # (b) continuation into a fresh base_dir, log-binned
-    from swraytracing_tpu.io.checkpoint import latest_checkpoint
+    from swraytracing.io.checkpoint import latest_checkpoint
     ck = latest_checkpoint(base1, prefix="ckpt-g0")
     assert ck is not None
     ck_t = np.load(ck)["leaf_3"]
@@ -189,7 +189,7 @@ def test_run_sweep_ensemble_sharded_matches_unsharded(tmp_path):
     to the single-device run."""
     import jax
 
-    from swraytracing_tpu.parallel.sharding import make_mesh
+    from swraytracing.parallel.sharding import make_mesh
 
     sweep = [(2.0, 0.3), (4.0, 0.6)]
     kw = dict(ensemble=True, nx=32, Npackets=16, T_Fr_days=30.0,
@@ -233,8 +233,8 @@ def test_qg2layersw_raytrace_end_to_end(tmp_path):
 
 
 def test_plots_render(tmp_path):
-    from swraytracing_tpu.analysis import plots
-    from swraytracing_tpu.ops.grid import SpectralGrid
+    from swraytracing.analysis import plots
+    from swraytracing.ops.grid import SpectralGrid
 
     rng = np.random.default_rng(0)
     omega = 3.0 + np.abs(rng.standard_normal((40, 32)))
@@ -258,8 +258,8 @@ def test_animate_pv_time_interpolates(tmp_path):
     """Dense packet cadence: animate_pv renders one frame per PACKET
     save with PV blended between flow frames (qgflow_animation.m:88-101)
     — frame count equals the packet frame count, not the PV count."""
-    from swraytracing_tpu.analysis import plots
-    from swraytracing_tpu.ops.grid import SpectralGrid
+    from swraytracing.analysis import plots
+    from swraytracing.ops.grid import SpectralGrid
 
     rng = np.random.default_rng(1)
     grid = SpectralGrid.square(16)
@@ -284,9 +284,9 @@ def test_kinetic_energy_spectrum_ring_ic():
     energy concentrates in the seeded ring modes 5..8 and the rings sum
     to the total KE = sum K^2 |psik|^2."""
     import jax
-    from swraytracing_tpu.ops.grid import SpectralGrid
-    from swraytracing_tpu.ops import spectral as sp
-    from swraytracing_tpu.models.qg import initial_q_ring
+    from swraytracing.ops.grid import SpectralGrid
+    from swraytracing.ops import spectral as sp
+    from swraytracing.models.qg import initial_q_ring
 
     grid = SpectralGrid.square(64)
     Kd2 = 3.0
@@ -308,9 +308,9 @@ def test_qg_passive_particles_advect():
     particles stay finite, disperse, and with zero flow stay put."""
     import jax
     import jax.numpy as jnp
-    from swraytracing_tpu.ops.grid import SpectralGrid
-    from swraytracing_tpu.ops import spectral as sp
-    from swraytracing_tpu.models.qg import (QGParams, qg_init,
+    from swraytracing.ops.grid import SpectralGrid
+    from swraytracing.ops import spectral as sp
+    from swraytracing.models.qg import (QGParams, qg_init,
                                             initial_q_ring,
                                             simulate_qg_particles)
 
@@ -424,9 +424,9 @@ def test_wavefield_reconstruction():
     the packet; superposition is linear; periodic in the domain."""
     import jax.numpy as jnp
 
-    from swraytracing_tpu.analysis.wavefield import reconstruct_wavefield
-    from swraytracing_tpu.models.dispersion import Dispersion
-    from swraytracing_tpu.ops.grid import SpectralGrid
+    from swraytracing.analysis.wavefield import reconstruct_wavefield
+    from swraytracing.models.dispersion import Dispersion
+    from swraytracing.ops.grid import SpectralGrid
 
     grid = SpectralGrid.square(64)
     disp = Dispersion(f=3.0, Cg=1.0)

@@ -5,9 +5,9 @@ geostrophic balance, and the Stokes-drift particle diagnostic."""
 import numpy as np
 import pytest
 
-from swraytracing_tpu.models import examples_1d as ex
-from swraytracing_tpu.models.sw1d import SW1Params, sw1, sw1rk3nu
-from swraytracing_tpu.models.exact_linear import linear_sw_solution_1d
+from swraytracing.models import examples_1d as ex
+from swraytracing.models.sw1d import SW1Params, sw1, sw1rk3nu
+from swraytracing.models.exact_linear import linear_sw_solution_1d
 
 
 def test_plane_wave_matches_exact_linear():

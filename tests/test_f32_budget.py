@@ -2,7 +2,7 @@
 
 Tests run under x64 CPU (conftest); each case re-runs the same physics
 under `jax.enable_x64(False)` so every op is genuinely float32 — the
-TPU production precision — and asserts the DOCUMENTED drift budget:
+production precision on the accelerator — and asserts the DOCUMENTED drift budget:
 
   * frozen-flow raytracing, rk23, production-length segment
     (nx=128, dt=2.5e-3, 12k steps, t=30): absolute-frequency
@@ -24,12 +24,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import spectral as sp
-from swraytracing_tpu.models.dispersion import Dispersion
-from swraytracing_tpu.models.fields import flow_from_qk, GriddedFlow
-from swraytracing_tpu.models.frozen import ring_ics, raytrace_frozen
-from swraytracing_tpu.models.qg import initial_q_ring
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import spectral as sp
+from swraytracing.models.dispersion import Dispersion
+from swraytracing.models.fields import flow_from_qk, GriddedFlow
+from swraytracing.models.frozen import ring_ics, raytrace_frozen
+from swraytracing.models.qg import initial_q_ring
 
 DISP = Dispersion(f=3.0, Cg=1.0)
 
@@ -71,7 +71,7 @@ def test_f32_conservation_budget_frozen():
 
 
 def _run_coupled(x64: bool):
-    from swraytracing_tpu.models.coupled import (CoupledConfig,
+    from swraytracing.models.coupled import (CoupledConfig,
                                                  setup_coupled,
                                                  run_coupled_chunk)
 
@@ -103,7 +103,7 @@ def test_f32_gradient_vs_fd_budget():
     leaves 20x headroom for unlucky cancellation. The same loss in f64
     matches FD to rtol 1e-5 (tests/test_rays.py
     test_gradients_vs_finite_differences)."""
-    from swraytracing_tpu.models import analytic, rays
+    from swraytracing.models import analytic, rays
 
     def make_loss(dtype):
         rng = np.random.default_rng(0)

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import spectral as sp
-from swraytracing_tpu.models.dispersion import Dispersion
-from swraytracing_tpu.models import analytic, frozen
-from swraytracing_tpu.io import binio
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import spectral as sp
+from swraytracing.models.dispersion import Dispersion
+from swraytracing.models import analytic, frozen
+from swraytracing.io import binio
 
 DISP = Dispersion(f=3.0, Cg=1.0)
 
@@ -41,7 +41,7 @@ def test_config2_vorticity_well_histogram():
 def test_config3_pv_snapshot_roundtrip(tmp_path):
     """Config 3: write a QG PV frame to .bin, reload it through the
     frozen-snapshot driver, check conservation in the steady flow."""
-    from swraytracing_tpu.models.qg import initial_q_ring
+    from swraytracing.models.qg import initial_q_ring
 
     nx = 64
     grid = SpectralGrid.square(nx)
@@ -59,7 +59,7 @@ def test_config3_pv_snapshot_roundtrip(tmp_path):
 
 def test_rsw_restart_action_raytracing():
     """raytrace_sw.m workflow: decomposed RSW state, x-k-a advection."""
-    from swraytracing_tpu.models.exact_linear import (geostrophic_ic,
+    from swraytracing.models.exact_linear import (geostrophic_ic,
                                                       plane_wave_ic)
 
     grid = SpectralGrid.square(64)

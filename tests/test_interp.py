@@ -7,17 +7,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import spectral as sp
-from swraytracing_tpu.ops.interp import (
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import spectral as sp
+from swraytracing.ops.interp import (
     lagrange_weights, interpolate, interpolate_stack)
-from swraytracing_tpu.ops.nufft import eval_spectrum_at, eval_spectrum_and_grad_at
+from swraytracing.ops.nufft import eval_spectrum_at, eval_spectrum_and_grad_at
 
 
 def test_weights_partition_of_unity():
     fr = jnp.linspace(0.0, 0.999, 37)
     w = lagrange_weights(fr, order=2)
-    assert w.shape == (6, 37)  # node axis first (TPU lane layout)
+    assert w.shape == (6, 37)  # node axis first, packet axis last
     np.testing.assert_allclose(np.asarray(w.sum(0)), 1.0, atol=1e-12)
 
 
@@ -171,8 +171,8 @@ def test_cubic_interpolation_accuracy():
     stencil stays more accurate (higher order)."""
     import numpy as np
     import jax.numpy as jnp
-    from swraytracing_tpu.ops.grid import SpectralGrid
-    from swraytracing_tpu.ops.interp import interpolate, interpolate_cubic
+    from swraytracing.ops.grid import SpectralGrid
+    from swraytracing.ops.interp import interpolate, interpolate_cubic
 
     grid = SpectralGrid.square(64)
     X, Y = grid.meshgrid()
@@ -199,7 +199,7 @@ def test_chunked_gather_matches_unchunked(monkeypatch):
     numerically identical to the single-gather path, including through
     padding of a non-multiple packet count, and differentiable."""
     import jax
-    from swraytracing_tpu.ops import interp as interp_mod
+    from swraytracing.ops import interp as interp_mod
 
     grid = SpectralGrid.square(32)
     X, Y = grid.meshgrid()
@@ -231,8 +231,8 @@ def test_windowed_matches_stencil(monkeypatch):
     take-style index per packet) must match the 36-point stencil path,
     including through the chunked branch and padding, and stay
     differentiable w.r.t. the field."""
-    from swraytracing_tpu.ops import interp as interp_mod
-    from swraytracing_tpu.ops.interp import build_windows, interp_windowed
+    from swraytracing.ops import interp as interp_mod
+    from swraytracing.ops.interp import build_windows, interp_windowed
 
     grid = SpectralGrid.square(32)
     X, Y = grid.meshgrid()
@@ -271,7 +271,7 @@ def test_windowed_matches_stencil(monkeypatch):
 def test_windowed_flow_classes_match():
     """GriddedFlow.windowed() / BlendedFlow.windowed() evaluate exactly
     like their stencil-path counterparts."""
-    from swraytracing_tpu.models.fields import GriddedFlow, BlendedFlow
+    from swraytracing.models.fields import GriddedFlow, BlendedFlow
 
     grid = SpectralGrid.square(32)
     X, Y = grid.meshgrid()

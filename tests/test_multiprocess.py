@@ -1,8 +1,8 @@
 """REAL multi-process execution of the coupled driver (the multi-host
 path, parallel/multihost.py): two OS processes, each owning 4 virtual
 CPU devices, joined by jax.distributed over localhost — the same
-coordinator + global-mesh + make_array_from_* machinery a TPU pod uses
-(DCN stands in as localhost gRPC/gloo). Each process assembles its
+coordinator + global-mesh + make_array_from_* machinery a multi-host
+cluster uses (localhost gRPC/gloo stand in for the network). Each process assembles its
 process-local packet block into the global sharded array, runs the
 jitted coupled chunk SPMD, and writes back only its addressable slice;
 the test verifies the assembled result equals a single-process run.
@@ -33,7 +33,7 @@ proc_id = int(sys.argv[1])
 coord = sys.argv[2]
 out_path = sys.argv[3]
 
-from swraytracing_tpu.parallel import multihost as mh
+from swraytracing.parallel import multihost as mh
 mh.initialize(coordinator=coord, num_processes=2, process_id=proc_id)
 
 jax.config.update("jax_enable_x64", True)
@@ -41,9 +41,9 @@ assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, jax.devices()
 
 from jax.sharding import NamedSharding, PartitionSpec as P
-from swraytracing_tpu.models.coupled import (CoupledConfig, setup_coupled,
+from swraytracing.models.coupled import (CoupledConfig, setup_coupled,
                                              run_coupled_chunk)
-from swraytracing_tpu.parallel.sharding import make_mesh
+from swraytracing.parallel.sharding import make_mesh
 
 cfg = CoupledConfig(nx=32, n_packets=64, T_Fr_days=10.0,
                     packet_delay_days=0.1)
@@ -100,7 +100,7 @@ def _free_port():
 def test_two_process_coupled_matches_single(tmp_path):
     # single-process reference (this pytest process, 8 virtual devices)
     import jax
-    from swraytracing_tpu.models.coupled import (CoupledConfig,
+    from swraytracing.models.coupled import (CoupledConfig,
                                                  setup_coupled,
                                                  run_coupled_chunk)
 

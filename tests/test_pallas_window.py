@@ -3,30 +3,39 @@ build, the XLA reference march vs the existing per-stage blended path,
 the Pallas kernel (interpret mode) vs the reference, gradients, margin
 overflow accounting, and the freeze (sub_dt=0) contract."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import pallas_window as pw
-from swraytracing_tpu.models import rays
-from swraytracing_tpu.models.dispersion import Dispersion
-from swraytracing_tpu.models.fields import BlendedFlow
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import pallas_window as pw
+from swraytracing.models import rays
+from swraytracing.models.dispersion import Dispersion
+from swraytracing.models.fields import BlendedFlow
 
 NX = 32
 L = 2.0 * np.pi
-NP = 128  # one kernel block
+NP = 128  # several kernel programs of pw.BLOCK packets
 
 
 def _spec(**kw):
     g = SpectralGrid.square(NX, L)
-    kw.setdefault("block", NP)
     return SpectralGrid.square(NX, L), pw.MarchSpec(
         nx=g.nx, ny=g.ny, dx=g.dx, dy=g.dy, f=3.0, Cg=1.0, **kw)
 
 
-def _setup(seed=0, **kw):
+@pytest.fixture
+def interpreted_kernel(monkeypatch):
+    """Route the 'pallas' engine through the Pallas interpreter (the
+    CPU has no Triton backend)."""
+    monkeypatch.setattr(pw, "march_pallas", functools.partial(
+        pw.march_pallas, interpret=True))
+
+
+def _setup(seed=0, n_packets=NP, **kw):
     grid, spec = _spec(**kw)
     rng = np.random.default_rng(seed)
     # smooth random fields so interpolation is well-conditioned
@@ -40,8 +49,8 @@ def _setup(seed=0, **kw):
 
     F1 = jnp.asarray(np.stack([smooth() for _ in range(6)]))
     F2 = jnp.asarray(np.stack([smooth() for _ in range(6)]))
-    x = jnp.asarray(rng.uniform(0, L, (2, NP)))
-    k = jnp.asarray(rng.normal(0, 3.0, (2, NP)))
+    x = jnp.asarray(rng.uniform(0, L, (2, n_packets)))
+    k = jnp.asarray(rng.normal(0, 3.0, (2, n_packets)))
     return grid, spec, F1, F2, x, k
 
 
@@ -105,29 +114,35 @@ def test_march_reference_matches_blended_path(stepper):
                                rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("tiles_transposed", [False, True])
+@pytest.mark.parametrize("margin,n_packets", [(1, NP), (2, 100)],
+                         ids=["margin1", "margin2-ragged"])
 @pytest.mark.parametrize("stepper", ["rk23", "symplectic"])
-def test_pallas_kernel_matches_reference(stepper, tiles_transposed):
-    grid, spec, F1, F2, x, k = _setup(stepper=stepper, margin=1,
-                                      interpret=True,
-                                      tiles_transposed=tiles_transposed)
+def test_pallas_kernel_matches_reference(stepper, margin, n_packets):
+    """The kernel (interpret mode) reproduces the XLA march on split
+    snapshot windows — at margin 2 (SW=10, padded to 16-wide tiles) and
+    at a packet count that leaves the last program partly masked."""
+    grid, spec, F1, F2, x, k = _setup(stepper=stepper, margin=margin,
+                                      n_packets=n_packets,
+                                      tiles_transposed=True)
     sub_dt = 0.1 * grid.dx
     inputs = _march_inputs(spec, F1, F2, x, k)
     ref, ov_ref = pw.march_reference(*inputs, sub_dt, spec)
-    out, ov = jax.jit(
-        lambda *a: pw.march_pallas(*a, spec))(*inputs, sub_dt)
+    out, ov = jax.jit(lambda *a: pw.march_pallas(
+        *a, spec, interpret=True))(*inputs, sub_dt)
+    assert out.shape == (4, n_packets) and ov.shape == (n_packets,)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=0, atol=1e-12)
     np.testing.assert_array_equal(np.asarray(ov), np.asarray(ov_ref))
 
 
-def test_fused_march_gradients_match_blended_path():
-    grid, spec, F1, F2, x, k = _setup(margin=2, interpret=True)
+def test_fused_march_gradients_match_blended_path(interpreted_kernel):
+    grid, spec, F1, F2, x, k = _setup(margin=2, engine="pallas",
+                                      tiles_transposed=True)
     sub_dt = 0.2 * grid.dx
 
     def loss_fused(F1_, F2_, x_, k_):
         inputs = _march_inputs(spec, F1_, F2_, x_, k_)
-        out, _ = pw.fused_march(*inputs, sub_dt, spec, True)
+        out, _ = pw.fused_march(*inputs, sub_dt, spec)
         return jnp.sum(out[2:] ** 2) + jnp.sum(jnp.sin(out[:2]))
 
     def loss_direct(F1_, F2_, x_, k_):
@@ -177,7 +192,7 @@ def test_coupled_fused_march_matches_per_stage():
     at the production 512 — benchmarks/gradinterp_accuracy.py), so at
     this deliberately coarse nx=32 the k-trajectories only agree to
     ~1e-1 after 4 flow steps; u,v (hence positions) are much closer."""
-    from swraytracing_tpu.models import coupled as cp
+    from swraytracing.models import coupled as cp
 
     base = cp.CoupledConfig(nx=32, n_packets=512, T_Fr_days=50.0,
                             packet_delay_days=0.0, U_g=0.4, f=3.0, Cg=1.0,
@@ -192,7 +207,7 @@ def test_coupled_fused_march_matches_per_stage():
         s, carry = cp.setup_coupled(cfg)
         if cfg.fused_march:
             assert s.march is not None
-            assert not s.march.use_pallas  # CPU -> XLA reference forward
+            assert s.march.engine == "xla"  # CPU -> XLA march
             assert s.march.combined_gather
             assert s.march.nf == (2 if cfg.march_uv_windows else 6)
         run = jax.jit(lambda c, s=s, cfg=cfg:
@@ -247,9 +262,11 @@ def test_combined_gather_matches_split(tiles_transposed):
 @pytest.mark.parametrize("grad_from_interp", [False, True])
 def test_pallas_kernel_combined_matches_reference(grad_from_interp):
     """The Pallas kernel (interpret mode) under combined_gather (+ the
-    uv-window mode) reproduces the XLA reference exactly."""
+    uv-window mode) reproduces the XLA reference exactly, including a
+    ragged packet count."""
+    n = 77
     grid, spec, F1, F2, x, k = _setup(
-        margin=1, stepper="rk23", interpret=True, tiles_transposed=True)
+        margin=1, stepper="rk23", tiles_transposed=True, n_packets=n)
     spec = spec._replace(combined_gather=True,
                          grad_from_interp=grad_from_interp,
                          nf=2 if grad_from_interp else 6)
@@ -262,7 +279,7 @@ def test_pallas_kernel_combined_matches_reference(grad_from_interp):
     xk = jnp.concatenate([x, k], axis=0)
     dummy = jnp.zeros((1, 1))
     ref, ov_ref = pw.march_reference(pwc, dummy, xk, oi, oj, sub_dt, spec)
-    out, ov = jax.jit(lambda *a: pw.march_pallas(*a, spec))(
+    out, ov = jax.jit(lambda *a: pw.march_pallas(*a, spec, interpret=True))(
         pwc, dummy, xk, oi, oj, sub_dt)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=0, atol=1e-12)
@@ -316,11 +333,12 @@ def test_grad_from_interp_tracks_spectral_gradient_march():
                                rtol=0, atol=2e-5 * scale)
 
 
-def test_fused_march_uv_combined_gradients():
+def test_fused_march_uv_combined_gradients(interpreted_kernel):
     """custom VJP of the production mode (uv windows + combined
-    gather): fused_march's gradient equals direct autodiff of the XLA
-    reference — including w.r.t. the combined window array."""
-    grid, spec, F1, F2, x, k = _setup(margin=2, interpret=True,
+    gather, kernel forward): fused_march's gradient equals direct
+    autodiff of the XLA reference — including w.r.t. the combined
+    window array."""
+    grid, spec, F1, F2, x, k = _setup(margin=2, engine="pallas",
                                       tiles_transposed=True)
     spec = spec._replace(nf=2, grad_from_interp=True,
                          combined_gather=True)
@@ -338,7 +356,7 @@ def test_fused_march_uv_combined_gradients():
 
     def loss_fused(F1_, F2_, xk_):
         out, _ = pw.fused_march(build(F1_, F2_), dummy, xk_, oi, oj,
-                                sub_dt, spec, True)
+                                sub_dt, spec)
         return jnp.sum(out[2:] ** 2) + jnp.sum(jnp.sin(out[:2]))
 
     def loss_ref(F1_, F2_, xk_):
@@ -353,59 +371,61 @@ def test_fused_march_uv_combined_gradients():
                                    rtol=1e-9, atol=1e-10, err_msg=name)
 
 
-def test_pallas_transpose_grad_and_orientations():
-    """pallas_transpose must be reverse-differentiable (its VJP is a
-    transpose — round-4 fix: the TPU flow-gradient path linearizes it
-    inside jax.checkpoint) and must tile whichever axis divides the
-    block (the backward call sees the transposed shape)."""
-    rng = np.random.default_rng(0)
-    W = jnp.asarray(rng.standard_normal((24, 64)))
-    T = pw.pallas_transpose(W, block=16, interpret=True)
-    np.testing.assert_array_equal(np.asarray(T), np.asarray(W).T)
-    # other orientation: leading axis divides the block
-    T2 = pw.pallas_transpose(T, block=16, interpret=True)
-    np.testing.assert_array_equal(np.asarray(T2), np.asarray(W))
-
-    def loss_p(W_):
-        return jnp.sum(jnp.sin(pw.pallas_transpose(W_, 16, True)) ** 2)
-
-    def loss_x(W_):
-        return jnp.sum(jnp.sin(W_.T) ** 2)
-
-    gp = jax.grad(loss_p)(W)
-    gx = jax.grad(loss_x)(W)
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(gx),
-                               rtol=1e-12, atol=1e-12)
-    # and under jax.checkpoint (the remat path that exposed the bug)
-    gc = jax.grad(jax.checkpoint(loss_p))(W)
-    np.testing.assert_allclose(np.asarray(gc), np.asarray(gx),
-                               rtol=1e-12, atol=1e-12)
+@pytest.mark.parametrize("platform,engine",
+                         [("gpu", "pallas"), ("cpu", "xla"), ("metal", None)])
+def test_march_engine_choice(platform, engine):
+    """The Triton-route kernel on GPUs, the XLA march on the CPU, and an
+    error — never a silent stand-in — on any other platform."""
+    if engine is None:
+        with pytest.raises(ValueError, match="no packet-march engine"):
+            pw.march_engine(platform)
+    else:
+        assert pw.march_engine(platform) == engine
 
 
-def test_fused_build_matches_two_pass():
-    """build_windows_fused (one-kernel pad+shift+transpose) must equal
-    build_margin_windows().T exactly, forward and gradient (its VJP is
-    the XLA linear transpose of the two-pass build)."""
-    spec = pw.MarchSpec(nx=32, ny=32, dx=0.1, dy=0.1, f=3.0, Cg=1.0,
-                        margin=2, nf=2, tiles_transposed=True,
-                        interpret=True, use_pallas=True, fused_build=True)
-    rng = np.random.default_rng(3)
-    F = jnp.asarray(rng.standard_normal((2, 32, 32)))
-    ref = pw.build_margin_windows(F, spec).T
-    got = pw.build_windows_fused(F, spec)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+def test_build_march_spec_engine(monkeypatch):
+    """setup picks the engine of the platform the run is placed on (the
+    `jax.default_device` in force, else the default backend)."""
+    from swraytracing.models import coupled as cp
 
-    def loss_f(F_):
-        return jnp.sum(jnp.sin(pw.build_windows_fused(F_, spec)))
+    cfg = cp.CoupledConfig(nx=32, n_packets=256, T_Fr_days=5.0,
+                           window_min_np=256)
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert cp.default_platform() == "cpu"
+        s, _ = cp.setup_coupled(cfg)
+    assert s.march.engine == "xla"
+    monkeypatch.setattr(cp, "default_platform", lambda: "gpu")
+    s, _ = cp.setup_coupled(cfg)
+    assert s.march.engine == "pallas"
 
-    def loss_r(F_):
-        return jnp.sum(jnp.sin(pw.build_margin_windows(F_, spec).T))
 
-    gf = jax.grad(loss_f)(F)
-    gr = jax.grad(loss_r)(F)
-    np.testing.assert_allclose(np.asarray(gf), np.asarray(gr),
-                               rtol=1e-13, atol=1e-13)
-    # non-square-tile row counts divide nx
-    assert pw._fused_build_rows(256, 256) == 8
-    assert pw._fused_build_rows(512, 512) == 4
-    assert pw._fused_build_rows(32, 32) == 32  # 2048//32=64 -> capped @ nx divisor
+@pytest.mark.gpu
+def test_march_kernel_on_gpu():
+    """The compiled kernel (no interpreter) against the XLA march on a
+    GPU, float32, margin 2 with a ragged packet count. Runs where JAX
+    sees a GPU (e.g. JAX_PLATFORMS=cuda,cpu python -m pytest -m gpu)."""
+    try:
+        gpu = jax.devices("gpu")[0]
+    except RuntimeError:
+        pytest.skip("no GPU visible to JAX")
+    grid, spec, F1, F2, x, k = _setup(margin=2, n_packets=1000,
+                                      tiles_transposed=True, nf=2,
+                                      grad_from_interp=True,
+                                      combined_gather=True)
+    f32 = lambda a: jax.device_put(jnp.asarray(a, jnp.float32), gpu)
+    F1, F2, x, k = map(f32, (F1[:2], F2[:2], x, k))
+    oi, oj = pw.packet_cells(x[0], x[1], spec)
+    Wc = jnp.concatenate([pw.build_gather_windows(F1, spec),
+                          pw.build_gather_windows(F2, spec)], axis=-1)
+    pwc = pw.gather_packet_windows(Wc, oi, oj, spec)
+    xk = jnp.concatenate([x, k], axis=0)
+    dummy = jnp.zeros((1, 1), jnp.float32)
+    sub_dt = 0.1 * grid.dx
+    ref, ov_ref = jax.jit(lambda *a: pw.march_reference(*a, sub_dt, spec))(
+        pwc, dummy, xk, oi, oj)
+    out, ov = jax.jit(lambda *a: pw.march_pallas(*a, sub_dt, spec))(
+        pwc, dummy, xk, oi, oj)
+    scale = np.abs(np.asarray(ref)).max(axis=1, keepdims=True)
+    assert (np.abs(np.asarray(out) - np.asarray(ref))
+            <= 32 * np.finfo(np.float32).eps * scale).all()
+    np.testing.assert_array_equal(np.asarray(ov), np.asarray(ov_ref))

@@ -7,12 +7,13 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from swraytracing_tpu.models.coupled import (CoupledConfig, setup_coupled,
+from swraytracing.models.coupled import (CoupledConfig, setup_coupled,
                                              run_coupled_chunk)
-from swraytracing_tpu.parallel import sharding as shd
-from swraytracing_tpu.parallel.ensemble import (setup_ensemble,
+from swraytracing.parallel import sharding as shd
+from swraytracing.parallel.ensemble import (setup_ensemble,
                                                 run_ensemble_chunk,
                                                 sweep_configs)
 
@@ -111,7 +112,7 @@ def test_ensemble_fused_march_matches_sequential():
 
     # per-member on-device diagnostics ride the same vmap: per-member
     # omega scales via the member-index argument
-    from swraytracing_tpu.analysis.device_diag import (OmegaHistSpec,
+    from swraytracing.analysis.device_diag import (OmegaHistSpec,
                                                        omega_hist_counts)
     wmax = jnp.asarray([2.0 * c.near_inertial_factor * c.f for c in cfgs])
     spec = OmegaHistSpec(n_bins=32, omega_max=1.0, f=base.f, Cg=base.Cg)
@@ -175,7 +176,7 @@ def test_multihost_helpers_roundtrip():
     """global_packet_array / host_local_slice on the virtual mesh (single
     process): global assembly + addressable-shard concatenation must
     round-trip the coordinate-first (2, Np) packet block."""
-    from swraytracing_tpu.parallel import multihost as mh
+    from swraytracing.parallel import multihost as mh
 
     mesh = shd.make_mesh(jax.devices())
     x = np.arange(2 * 64, dtype=np.float32).reshape(2, 64)
@@ -225,7 +226,7 @@ def test_scaling_harness_runs():
     """measure_packet_scaling runs on the virtual mesh and reports sane
     monotone packet counts and positive rates (CPU efficiency numbers are
     not asserted — the harness is exercised, the physics shards)."""
-    from swraytracing_tpu.parallel.scaling import measure_packet_scaling
+    from swraytracing.parallel.scaling import measure_packet_scaling
 
     cfg0 = CoupledConfig(nx=32, T_Fr_days=10.0, packet_delay_days=0.1)
 
@@ -358,6 +359,44 @@ def test_production_march_collective_census():
     assert cg.get("all-reduce", 0) <= 6, cg
 
 
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_sharded_chunk_marches_packets_where_they_are(engine, monkeypatch):
+    """Whatever the engine, a chunk whose packets are sharded marches
+    each device's packets on that device: the packet state comes back
+    sharded, no all-gather appears, and the result matches one device.
+    The kernel (run by the Pallas interpreter here) is opaque to the
+    partitioner; fused_march's partitioning rule keeps it local without
+    the caller setting anything."""
+    from swraytracing.ops import pallas_window as pwin
+
+    monkeypatch.setattr(pwin, "march_pallas", functools.partial(
+        pwin.march_pallas, interpret=True))
+    cfg = _production_march_cfg()
+    s, carry = setup_coupled(cfg)
+    s = s._replace(march=s.march._replace(engine=engine))
+    run = jax.jit(functools.partial(run_coupled_chunk, s=s, cfg=cfg,
+                                    n_saves=2))
+    c1, _ = run(carry)
+
+    mesh = shd.make_mesh(ensemble=1)
+    carry_sh = carry.replace(
+        packet_x=jax.device_put(carry.packet_x, shd.packet_sharding(mesh)),
+        packet_k=jax.device_put(carry.packet_k, shd.packet_sharding(mesh)),
+        prev_fields=jax.device_put(carry.prev_fields, shd.replicated(mesh)))
+    comp = run.lower(carry_sh).compile()
+    census = shd.collective_census(comp.as_text())
+    assert census.get("all-gather", 0) == 0, census
+    assert census.get("all-reduce", 0) <= 1, census   # the overflow max
+    c8, _ = comp(carry_sh)
+    for a in (c8.packet_x, c8.packet_k):
+        assert not a.sharding.is_fully_replicated
+        assert len({sh.device for sh in a.addressable_shards}) == 8
+    np.testing.assert_allclose(np.asarray(c8.packet_x),
+                               np.asarray(c1.packet_x), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(c8.packet_k),
+                               np.asarray(c1.packet_k), rtol=0, atol=1e-12)
+
+
 def test_census_regex_counts_definitions_only():
     """The census pattern must count collective instruction DEFINITIONS
     — including tuple-shaped variadic/async forms XLA's combiner emits —
@@ -392,7 +431,7 @@ def test_vmapped_log_hist_matches_numpy():
     import jax.numpy as jnp
     import numpy as np
 
-    from swraytracing_tpu.analysis.device_diag import (OmegaHistSpec,
+    from swraytracing.analysis.device_diag import (OmegaHistSpec,
                                                        omega_hist_counts,
                                                        hist_edges)
 

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.models import qg2
-from swraytracing_tpu.models.coupled2 import (Coupled2Config, setup_coupled2,
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.models import qg2
+from swraytracing.models.coupled2 import (Coupled2Config, setup_coupled2,
                                               run_coupled2_chunk)
 
 

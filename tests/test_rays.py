@@ -8,17 +8,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.models.dispersion import Dispersion
-from swraytracing_tpu.models import analytic, rays
-from swraytracing_tpu.models.fields import flow_from_psi_grid
-from swraytracing_tpu.ops.grid import SpectralGrid
+from swraytracing.models.dispersion import Dispersion
+from swraytracing.models import analytic, rays
+from swraytracing.models.fields import flow_from_psi_grid
+from swraytracing.ops.grid import SpectralGrid
 
 
 DISP = Dispersion(f=3.0, Cg=1.0)
 
 
 def ring_ics(np_, ki, seed=0, L=2 * np.pi):
-    # packet arrays are coordinate-first (2, Np) — TPU lane layout
+    # packet arrays are coordinate-first (2, Np)
     rng = np.random.default_rng(seed)
     ang = 2 * np.pi * np.arange(np_) / np_
     x0 = jnp.asarray(rng.uniform(0, L, (2, np_)))
@@ -188,7 +188,7 @@ def test_rk4_frozen_step_uniform_flow_exact():
     """rk4_frozen_step (step_packet.m semantics: group velocity frozen at
     the initial k, grad U frozen at the initial position) is EXACT in a
     uniform flow: x advances by dt*(U + C(k0)), k is unchanged."""
-    from swraytracing_tpu.models.fields import GriddedFlow
+    from swraytracing.models.fields import GriddedFlow
 
     grid = SpectralGrid.square(32)
     U0 = 0.37
@@ -236,11 +236,11 @@ def test_fixed_substeps_within_ode23_envelope():
     long-run logs). Errors measured against an rtol=1e-10 adaptive
     truth. Full study: benchmarks/substep_study.py."""
     import functools
-    from swraytracing_tpu.models.coupled import (CoupledConfig,
+    from swraytracing.models.coupled import (CoupledConfig,
                                                  setup_coupled,
                                                  coupled_flow_packet_step)
-    from swraytracing_tpu.models.fields import BlendedFlow, flow_from_qk
-    from swraytracing_tpu.models.qg import qg_step
+    from swraytracing.models.fields import BlendedFlow, flow_from_qk
+    from swraytracing.models.qg import qg_step
 
     cfg = CoupledConfig(nx=64, n_packets=64, near_inertial_factor=16.0,
                         packet_delay_days=0.0)

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.models.dispersion import Dispersion
-from swraytracing_tpu.models import analytic, rays
-from swraytracing_tpu.models.fields import flow_from_psi_grid
-from swraytracing_tpu.models.reversible import (make_reversible_integrator,
+from swraytracing.models.dispersion import Dispersion
+from swraytracing.models import analytic, rays
+from swraytracing.models.fields import flow_from_psi_grid
+from swraytracing.models.reversible import (make_reversible_integrator,
                                                 inverse_symplectic_step)
-from swraytracing_tpu.ops.grid import SpectralGrid
+from swraytracing.ops.grid import SpectralGrid
 
 DISP = Dispersion(f=3.0, Cg=1.0)
 
@@ -116,7 +116,7 @@ def test_long_loop_reconstruction_stability():
     xN, kN = integ(x0, k0, flow)
 
     def back(_, xk):
-        from swraytracing_tpu.models.reversible import (
+        from swraytracing.models.reversible import (
             inverse_symplectic_step as inv)
         return inv(*xk, dt, DISP, flow)
 

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.models import rsw
-from swraytracing_tpu.models.exact_linear import (linear_sw_solution,
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.models import rsw
+from swraytracing.models.exact_linear import (linear_sw_solution,
                                                  plane_wave_ic,
                                                  geostrophic_ic)
 
@@ -149,7 +149,7 @@ def test_particle_advection_cellular():
 def test_example_ics_run_stably():
     """swexamples.m IC library: each canned IC runs in swk and stays
     finite; the wave/vortex split behaves as constructed."""
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(64)
     p = rsw.RSWParams(f=F, Cg=CG)
@@ -170,7 +170,7 @@ def test_example_ics_run_stably():
 
 def test_inertial_oscillation_rotates_at_f():
     """Uniform flow rotates at exactly f (swexamples.m inertial case)."""
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(32)
     p = rsw.RSWParams(f=F, Cg=CG)
@@ -187,7 +187,7 @@ def test_inertial_oscillation_rotates_at_f():
 def test_wave_vortex_spectra_separates_bands():
     """wavespecic2d-style IC: wave energy in |k|<=5, geostrophic energy
     in the 10<|k|<=13 band; the decomposed iso-spectra must reflect it."""
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(64)
     p = rsw.RSWParams(f=F, Cg=CG)
@@ -215,7 +215,7 @@ def test_swks_bernoulli_variant_runs():
 def test_translating_cs_background_swku_tc():
     """swkU_tc: linearized waves over a TRANSLATING Childress-Soward
     background recomputed per step (swkU_tc.m:202-220)."""
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(48)
     p = rsw.RSWParams(f=F, Cg=CG)
@@ -280,7 +280,7 @@ def test_swknd_particle_grid_inertial_oscillation():
 
 
 def test_doppler_wave_field_builder():
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(48)
     (u, v, eta), (ug, vg, etag), ew = examples.doppler_wave_field(
@@ -298,7 +298,7 @@ def test_doppler_refract_wave_differs_from_unrefracted():
     change the evolved wave field but not the t=0 snapshot's eta (the
     t=0 phase theta = kx+ly+phi is omega-independent; u,v do depend on
     omega through the polarisation)."""
-    from swraytracing_tpu.models import examples
+    from swraytracing.models import examples
 
     grid = SpectralGrid.square(48)
     kw = dict(k_range=range(3, 5), l_range=range(5, 7), seed=3)
@@ -314,8 +314,8 @@ def test_doppler_refract_wave_differs_from_unrefracted():
 def test_doppler_refract_wave_sw_extracts_geostrophic():
     """Feeding a purely geostrophic state into the _sw variant must
     recover it (up to the ag renormalisation) as the mean flow."""
-    from swraytracing_tpu.models import examples
-    from swraytracing_tpu.models.exact_linear import geostrophic_ic
+    from swraytracing.models import examples
+    from swraytracing.models.exact_linear import geostrophic_ic
 
     grid = SpectralGrid.square(48)
     X, Y = grid.meshgrid()
@@ -332,7 +332,7 @@ def test_doppler_refract_wave_sw_extracts_geostrophic():
 
 
 def test_exact_linear_1d():
-    from swraytracing_tpu.models.exact_linear import linear_sw_solution_1d
+    from swraytracing.models.exact_linear import linear_sw_solution_1d
 
     n, k = 64, 3
     x = np.linspace(0, 2 * np.pi, n, endpoint=False)

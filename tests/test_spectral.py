@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from swraytracing_tpu.ops.grid import SpectralGrid
-from swraytracing_tpu.ops import spectral as sp
+from swraytracing.ops.grid import SpectralGrid
+from swraytracing.ops import spectral as sp
 
 
 @pytest.fixture
@@ -130,31 +130,3 @@ def test_1d_padded_product():
     pk = np.asarray(sp.padded_product_1d(fk, gk, n))
     true = sp.to_spectral_1d(jnp.asarray(0.5 * (np.cos(12 * x) + np.cos(2 * x))), n)
     np.testing.assert_allclose(pk, np.asarray(true), atol=1e-12)
-
-
-def test_matmul_dft_matches_fft():
-    """The TPU matmul-DFT backend must agree with jnp.fft to roundoff
-    (it is the default transform path on TPU, where the XLA FFT custom
-    call is avoided; see ops/spectral.py)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from swraytracing_tpu.ops.grid import SpectralGrid
-    from swraytracing_tpu.ops import spectral as sp
-
-    for nx, ny in [(32, 32), (48, 64)]:
-        grid = SpectralGrid(nx=nx, ny=ny, Lx=2 * np.pi, Ly=2 * np.pi)
-        rng = np.random.default_rng(3)
-        f = jnp.asarray(rng.standard_normal((nx, ny)))
-        fk_fft = sp.to_spectral(f, grid, backend="fft")
-        fk_mm = sp.to_spectral(f, grid, backend="matmul")
-        np.testing.assert_allclose(np.asarray(fk_mm), np.asarray(fk_fft),
-                                   atol=1e-12)
-        g_fft = sp.to_grid(fk_fft, grid, backend="fft")
-        g_mm = sp.to_grid(fk_fft, grid, backend="matmul")
-        np.testing.assert_allclose(np.asarray(g_mm), np.asarray(g_fft),
-                                   atol=1e-11)
-        # batched leading dim
-        fb = jnp.stack([f, 2 * f, f**2])
-        np.testing.assert_allclose(
-            np.asarray(sp.to_spectral(fb, grid, backend="matmul")),
-            np.asarray(sp.to_spectral(fb, grid, backend="fft")), atol=1e-12)

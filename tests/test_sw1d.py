@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from swraytracing_tpu.models import sw1d
+from swraytracing.models import sw1d
 
 F, CG = 3.0, 1.0
 
